@@ -1,9 +1,9 @@
-// Native host codec for pngloss-tpu: PNG decode to normalized RGBA8 and
+// Native host codec for pngloss-jax: PNG decode to normalized RGBA8 and
 // encode from pixels + per-row filter ids, built directly on zlib.
 //
 // This replaces the reference's libpng wrapper (rwpng.c) with a standalone
 // implementation whose byte-level behavior matches both the reference tool
-// and the pure-Python codec (pngloss_tpu/codec/pypng.py) exactly:
+// and the pure-Python codec (pngloss_jax/codec/pypng.py) exactly:
 //   * decode normalizations: palette expand (+tRNS alpha), sub-8-bit gray
 //     expansion, 16->8 bit strip, gray->RGB replication, opaque filler
 //     alpha, Adam7 de-interlacing (rwpng.c:238-277 behavior)
@@ -857,7 +857,7 @@ static bool fast_deflate_canary_run() {
   if (forced_fail) match = false;
   if (!match) {
     std::fprintf(stderr,
-                 "pngloss-tpu: system zlib (%s) deviates from the cloned "
+                 "pngloss-jax: system zlib (%s) deviates from the cloned "
                  "1.2.13 deflate on the canary buffer — falling back to "
                  "libz so output stays byte-identical to the local "
                  "toolchain\n", zlibVersion());

@@ -6,7 +6,7 @@ import subprocess
 
 import pytest
 
-from pngloss_tpu.cli import (
+from pngloss_jax.cli import (
     INVALID_ARGUMENT,
     MISSING_ARGUMENT,
     NOT_OVERWRITING_ERROR,
@@ -17,12 +17,14 @@ from pngloss_tpu.cli import (
     run,
 )
 
-ROSE = "/root/reference/suite/rose.png"
+@pytest.fixture(scope="module")
+def rose_path(suite_dir):
+    return f"{suite_dir}/rose.png"
 
 
 @pytest.fixture(scope="module")
-def rose_bytes(suite_dir):
-    with open(ROSE, "rb") as f:
+def rose_bytes(rose_path):
+    with open(rose_path, "rb") as f:
         return f.read()
 
 
@@ -42,24 +44,26 @@ def test_stdin_stdout_byte_parity(oracle, rose_bytes, strength):
     assert out == ref.stdout
 
 
-def test_output_file_and_overwrite_guard(oracle, rose_bytes, tmp_path):
+def test_output_file_and_overwrite_guard(oracle, rose_bytes, rose_path,
+                                        tmp_path):
     outp = tmp_path / "rose-out.png"
-    rc, _ = _run_ours(["-s", "19", "-o", str(outp), ROSE])
+    rc, _ = _run_ours(["-s", "19", "-o", str(outp), rose_path])
     assert rc == SUCCESS
     ref = subprocess.run([oracle, "-f", "-s", "19", "-b", "2", "-"],
                          input=rose_bytes, capture_output=True).stdout
     assert outp.read_bytes() == ref
     # second run without -f must refuse (pngloss.c:184-187)
-    rc, _ = _run_ours(["-s", "19", "-o", str(outp), ROSE])
+    rc, _ = _run_ours(["-s", "19", "-o", str(outp), rose_path])
     assert rc == NOT_OVERWRITING_ERROR
     # --no-force after -f restores the guard
-    rc, _ = _run_ours(["-f", "--no-force", "-s", "19", "-o", str(outp), ROSE])
+    rc, _ = _run_ours(["-f", "--no-force", "-s", "19", "-o", str(outp),
+                       rose_path])
     assert rc == NOT_OVERWRITING_ERROR
 
 
-def test_default_extension_naming(tmp_path, suite_dir):
+def test_default_extension_naming(tmp_path, rose_bytes):
     src = tmp_path / "img.png"
-    src.write_bytes(open(ROSE, "rb").read())
+    src.write_bytes(rose_bytes)
     rc, _ = _run_ours(["-f", "-s", "19", str(src)])
     assert rc == SUCCESS
     assert (tmp_path / "img-loss.png").exists()
@@ -99,7 +103,7 @@ def test_error_exit_codes(tmp_path):
 def test_not_a_png_is_libpng_fatal_error(tmp_path, capsys):
     # the reference reports decode failures as LIBPNG_FATAL_ERROR (25) with
     # the libpng message plus the cannot-decode line (pngloss.c:453)
-    from pngloss_tpu.cli import LIBPNG_FATAL_ERROR
+    from pngloss_jax.cli import LIBPNG_FATAL_ERROR
 
     bad = tmp_path / "bad.png"
     bad.write_bytes(b"this is not a png")
@@ -132,7 +136,7 @@ def test_verbose_stderr_parity(oracle, rose_bytes, capsys):
     rc, _ = _run_ours(["-fv", "-s", "19", "-b", "2", "-"], rose_bytes)
     assert rc == SUCCESS
     ours = [ln for ln in capsys.readouterr().err.splitlines()
-            if "pngloss-tpu" not in ln]    # version header lines, ours only
+            if "pngloss-jax" not in ln]    # version header lines, ours only
     ref = subprocess.run([oracle, "-fv", "-s", "19", "-b", "2", "-"],
                          input=rose_bytes, capture_output=True)
     theirs = []

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from pngloss_tpu.codec import pypng
+from pngloss_jax.codec import pypng
 from tests.conftest import run_oracle
 
 

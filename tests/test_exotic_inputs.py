@@ -12,7 +12,7 @@ import zlib
 import numpy as np
 import pytest
 
-from pngloss_tpu.cli import run
+from pngloss_jax.cli import run
 from tests.conftest import run_oracle
 import io
 

@@ -65,7 +65,7 @@ def test_zlib_canary_guard():
     code = (
         "import sys, ctypes, numpy as np\n"
         "sys.path.insert(0, %r)\n"
-        "from pngloss_tpu.codec import native\n"
+        "from pngloss_jax.codec import native\n"
         "lib = ctypes.CDLL(%r)\n"
         "print('ACTIVE', lib.pl_fast_deflate_active())\n"
         "rng = np.random.default_rng(5)\n"

@@ -1,5 +1,5 @@
 """FastCGI transport: raw-record protocol tests against the responder
-(pngloss_tpu/fcgi.py), mirroring how a front server drives the reference
+(pngloss_jax/fcgi.py), mirroring how a front server drives the reference
 sidecar (website/pnglossapi.go:91-124, fcgi.Serve on a unix socket).
 The client below speaks FCGI records from scratch — BEGIN_REQUEST,
 PARAMS, STDIN — exactly as nginx's fastcgi_pass does (keep-alive off,
@@ -14,7 +14,7 @@ import threading
 
 import pytest
 
-from pngloss_tpu.fcgi import (
+from pngloss_jax.fcgi import (
     FCGI_BEGIN_REQUEST,
     FCGI_END_REQUEST,
     FCGI_GET_VALUES,
@@ -25,9 +25,7 @@ from pngloss_tpu.fcgi import (
     _pack_pairs,
     _pack_record,
 )
-from pngloss_tpu.website import make_server
-
-ROSE = "/root/reference/suite/rose.png"
+from pngloss_jax.website import make_server
 
 
 @pytest.fixture(scope="module")
@@ -106,8 +104,8 @@ def test_front_page_over_fcgi(fcgi_sock):
     assert b"pngloss" in body
 
 
-def test_compress_and_fetch_over_fcgi(fcgi_sock, oracle):
-    rose = open(ROSE, "rb").read()
+def test_compress_and_fetch_over_fcgi(fcgi_sock, oracle, suite_dir):
+    rose = open(f"{suite_dir}/rose.png", "rb").read()
     body, ctype = _multipart({"file": rose, "strength": b"19",
                               "bleed": b"2", "strip": b"0"})
     headers, page, status = fcgi_request(fcgi_sock, {

@@ -11,8 +11,8 @@ import os
 import numpy as np
 import pytest
 
-from pngloss_tpu.cli import run
-from pngloss_tpu.codec import encode
+from pngloss_jax.cli import run
+from pngloss_jax.codec import encode
 from tests.conftest import run_oracle
 
 

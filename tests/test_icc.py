@@ -13,8 +13,8 @@ import zlib
 import numpy as np
 import pytest
 
-from pngloss_tpu import codec
-from pngloss_tpu.codec import icc
+from pngloss_jax import codec
+from pngloss_jax.codec import icc
 
 
 def _tag_xyz(v):
@@ -34,7 +34,7 @@ def build_matrix_profile(m_cols: np.ndarray, gamma: float) -> bytes:
     """Minimal matrix-shaper RGB display profile lcms can open.
     m_cols: 3x3 with COLUMNS = r/g/b XYZ(D50)."""
     tags = [
-        (b"desc", _tag_text(b"pngloss-tpu test profile")),
+        (b"desc", _tag_text(b"pngloss-jax test profile")),
         (b"wtpt", _tag_xyz([0.9642, 1.0, 0.8249])),
         (b"rXYZ", _tag_xyz(m_cols[:, 0])),
         (b"gXYZ", _tag_xyz(m_cols[:, 1])),
@@ -221,7 +221,7 @@ def build_lut_profile(m_cols: np.ndarray, gamma: float, grid: int = 17,
             + clut_words.tobytes()
             + np.tile(out_words, 3).tobytes())
     tags = [
-        (b"desc", _tag_text(b"pngloss-tpu lut test profile")),
+        (b"desc", _tag_text(b"pngloss-jax lut test profile")),
         (b"wtpt", _tag_xyz([0.9642, 1.0, 0.8249])),
         (b"A2B0", body),
         (b"cprt", b"text" + b"\0" * 4 + b"none\0"),
@@ -354,7 +354,7 @@ def build_mab_lab_profile(m_cols: np.ndarray, gamma: float,
             + struct.pack(">5I", off_b, 0, 0, off_clut, off_a)
             + b_curves + _pad4(clut) + a_curves)
     tags = [
-        (b"desc", _tag_text(b"pngloss-tpu mab lab test profile")),
+        (b"desc", _tag_text(b"pngloss-jax mab lab test profile")),
         (b"wtpt", _tag_xyz(_D50_WHITE)),
         (b"A2B0", body),
         (b"cprt", b"mluc" + b"\0" * 4 + struct.pack(">II", 1, 12)
@@ -426,7 +426,7 @@ def build_gray_profile(gamma: float) -> bytes:
     the colorspace, then skips the transform with a warning
     (rwpng.c:333-336)."""
     tags = [
-        (b"desc", _tag_text(b"pngloss-tpu gray test profile")),
+        (b"desc", _tag_text(b"pngloss-jax gray test profile")),
         (b"wtpt", _tag_xyz(_D50_WHITE)),
         (b"kTRC", _tag_gamma(gamma)),
         (b"cprt", b"text" + b"\0" * 4 + b"none\0"),

@@ -1,6 +1,6 @@
 """Bit-exactness of the batched XLA kernel vs the scalar reference model.
 
-The scalar model (pngloss_tpu.core.reference) is itself byte-parity-tested
+The scalar model (pngloss_jax.core.reference) is itself byte-parity-tested
 against the compiled reference C tool in test_reference_model.py, so parity
 here implies parity with the C tool's optimizer (optimize_state.c /
 pngloss_image.c).
@@ -9,8 +9,8 @@ pngloss_image.c).
 import numpy as np
 import pytest
 
-from pngloss_tpu.core import reference as ref
-from pngloss_tpu.ops.optimize import optimize_batch
+from pngloss_jax.core import reference as ref
+from pngloss_jax.ops.optimize import optimize_batch
 
 
 def _check(rows, bpp, strength, bleed=2, use_row_filters=True):
@@ -72,20 +72,20 @@ def test_batch_matches_individual():
         np.testing.assert_array_equal(np.asarray(fb[i]), fr)
 
 
-def test_hist_dot_matches_scatter(monkeypatch):
-    """The MXU nibble-outer-product histogram (the TPU pre-pass path) must
-    equal the scatter-add path exactly — including ragged masks."""
+def test_original_frequencies_ragged_masks():
+    """The pre-pass histograms of a padded plane, restricted by the real
+    width/height, equal the scalar model's on the unpadded image."""
     import jax.numpy as jnp
 
-    from pngloss_tpu.ops.optimize import _original_frequencies
+    from pngloss_jax.ops.optimize import _original_frequencies
 
     rng = np.random.default_rng(11)
-    orig = jnp.asarray(
-        rng.integers(0, 256, size=(37, 23, 3), dtype=np.uint8), jnp.int32)
-    for wr, hr in ((None, None), (jnp.int32(17), jnp.int32(29))):
-        monkeypatch.delenv("PNGLOSS_FORCE_HIST_DOT", raising=False)
-        h_scatter = np.asarray(_original_frequencies(orig, 3, wr, hr))
-        monkeypatch.setenv("PNGLOSS_FORCE_HIST_DOT", "1")
-        h_dot = np.asarray(_original_frequencies(orig, 3, wr, hr))
-        np.testing.assert_array_equal(h_dot, h_scatter)
-        assert h_scatter.sum() > 0
+    img = rng.integers(0, 256, size=(29, 17, 3), dtype=np.uint8)
+    pad = np.zeros((37, 23, 3), np.uint8)
+    pad[:29, :17] = img
+    got = _original_frequencies(jnp.asarray(pad, jnp.int32), 3,
+                                jnp.int32(17), jnp.int32(29))
+    want = ref.original_frequencies(img.reshape(29, 17 * 3), 3)
+    np.testing.assert_array_equal(np.asarray(got), want)
+    full = _original_frequencies(jnp.asarray(img, jnp.int32), 3)
+    np.testing.assert_array_equal(np.asarray(full), want)

@@ -27,7 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 from malformed import catalog, base_palette, with_chunk_at  # noqa: E402
 
-from pngloss_tpu.codec import native, pypng  # noqa: E402
+from pngloss_jax.codec import native, pypng  # noqa: E402
 
 CASES = catalog()
 
@@ -268,7 +268,7 @@ def test_oracle_accept_reject_and_exit_code_parity():
 def test_chunk_placement_corner_oracle_byte_parity(strip):
     # full-pipeline output bytes must match the C tool on every placement
     # corner, in both keep and strip modes (round-4 hand probe, 0 fails)
-    from pngloss_tpu.pipeline import compress_many
+    from pngloss_jax.pipeline import compress_many
 
     cases = _placement_corner_cases()
     outs = compress_many([png for _, png in cases], [19] * len(cases), 2,

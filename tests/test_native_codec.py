@@ -5,8 +5,8 @@ import glob
 import numpy as np
 import pytest
 
-from pngloss_tpu.codec import pypng
-from pngloss_tpu.codec import native
+from pngloss_jax.codec import pypng
+from pngloss_jax.codec import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -49,10 +49,10 @@ def test_too_large_file_carries_identical_bytes(suite_dir):
     assert ea.value.data == eb.value.data
 
 
-def test_decode_errors():
+def test_decode_errors(suite_dir):
     with pytest.raises(pypng.PngDecodeError):
         native.decode(b"definitely not a png")
-    good = open("/root/reference/suite/rose.png", "rb").read()
+    good = open(f"{suite_dir}/rose.png", "rb").read()
     with pytest.raises(pypng.PngDecodeError):
         native.decode(good[:100])  # truncated
     corrupt = bytearray(good)

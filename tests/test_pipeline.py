@@ -5,9 +5,9 @@ import pytest
 
 import jax
 
-from pngloss_tpu.core import reference as ref
-from pngloss_tpu.parallel import data_mesh, optimize_batch_sharded
-from pngloss_tpu.pipeline import (
+from pngloss_jax.core import reference as ref
+from pngloss_jax.parallel import data_mesh, optimize_batch_sharded
+from pngloss_jax.pipeline import (
     compress_many,
     optimize_rgba_batch,
     reduce_colorspace,
@@ -56,7 +56,7 @@ def test_sharded_equals_unsharded():
     rows = rng.integers(0, 256, size=(5, 4, 6 * 3), dtype=np.uint8)  # 5 !% 8
     mesh = data_mesh()
     q_sh, f_sh = optimize_batch_sharded(rows, 19, bpp=3, mesh=mesh)
-    from pngloss_tpu.ops.optimize import optimize_batch
+    from pngloss_jax.ops.optimize import optimize_batch
     q, f = optimize_batch(rows, 19, bpp=3)
     np.testing.assert_array_equal(q_sh, np.asarray(q))
     np.testing.assert_array_equal(f_sh, np.asarray(f))
@@ -82,7 +82,7 @@ def test_sharded_mixed_strengths():
     rows = rng.integers(0, 256, size=(8, 4, 5 * 3), dtype=np.uint8)
     strengths = [0, 1, 5, 19, 40, 88, 19, 3]
     q, f = optimize_batch_sharded(
-        rows, strengths, bpp=3, mesh=data_mesh(), impl="pallas")
+        rows, strengths, bpp=3, mesh=data_mesh(), impl="cuda")
     for i, s in enumerate(strengths):
         qr, fr = ref.optimize_image(rows[i], 3, s)
         np.testing.assert_array_equal(q[i], qr)
@@ -90,7 +90,7 @@ def test_sharded_mixed_strengths():
 
 
 def test_optimize_with_stride_in_place():
-    from pngloss_tpu.pipeline import optimize_with_stride
+    from pngloss_jax.pipeline import optimize_with_stride
     rng = np.random.default_rng(42)
     w, h, stride = 6, 4, 6 * 4 + 8  # padded rows
     buf = rng.integers(0, 256, size=(h * stride,), dtype=np.uint8)
@@ -105,14 +105,14 @@ def test_optimize_with_stride_in_place():
 
 
 def test_mesh_quantum_chunks_buckets(monkeypatch):
-    """With a mesh, dispatch_buckets must still chunk buckets to one VMEM
-    quantum per device (a whole bucket per dispatch blows per-shard VMEM)."""
-    from pngloss_tpu import pipeline
-    from pngloss_tpu import ops
+    """With a mesh, dispatch_buckets must still chunk buckets to one
+    quantum per device (the path's per-dispatch limit applies per shard)."""
+    from pngloss_jax import pipeline
+    from pngloss_jax import ops
 
     def fake_quantum(*a, **k):
-        return 2                      # pretend VMEM fits 2 images per device
-    # dispatch_buckets imports device_batch_quantum from pngloss_tpu.ops at
+        return 2                      # pretend 2 images fit per device
+    # dispatch_buckets imports device_batch_quantum from pngloss_jax.ops at
     # call time, so patching the ops module attribute is what matters
     monkeypatch.setattr(ops, "device_batch_quantum", fake_quantum)
 
@@ -128,47 +128,41 @@ def test_mesh_quantum_chunks_buckets(monkeypatch):
         assert all(q.shape == (8, 27) for q in qs)
 
 
-def test_image_batch_cap_env(monkeypatch):
-    from pngloss_tpu.ops.pallas_image import max_batch_image
+def test_device_batch_quantum_per_path():
+    """The kernel's per-dispatch limit is its memory budget over the bytes
+    one image takes; the XLA path is unbounded."""
+    from pngloss_jax import ops
+    from pngloss_jax.ops import rowkernel
 
-    monkeypatch.setenv("PNGLOSS_IMAGE_BATCH_CAP", "7")
-    assert max_batch_image(512, 3, 0) == 7
-    monkeypatch.delenv("PNGLOSS_IMAGE_BATCH_CAP")
-    assert max_batch_image(512, 3, 0) == 25
+    q = ops.device_batch_quantum(512, 512, 3, impl="cuda")
+    assert q == rowkernel.batch_limit(512, 512, 3) >= 25
+    assert ops.device_batch_quantum(3000, 3000, 4, impl="cuda") >= 1
+    assert (ops.device_batch_quantum(512, 512, 3, impl="xla")
+            == ops.UNBOUNDED_BATCH)
+    assert ops.pad_batch_size(5, q) == 8
+    assert ops.pad_batch_size(9, ops.UNBOUNDED_BATCH) == 9
 
 
 def test_compress_many_all_inputs_bad():
     """Per-image strengths with every file undecodable: no device dispatch
     should happen and each result must carry its error (the empty
     per-image strength vector used to crash np.max in dispatch_buckets)."""
-    from pngloss_tpu.pipeline import compress_many
+    from pngloss_jax.pipeline import compress_many
 
     results = compress_many([b"junk", b"also junk"], strength=[19, 40])
     assert all(r.error is not None and r.data is None for r in results)
 
 
-def test_sharded_bleed1_tall_image_uses_xla(monkeypatch):
-    """Inside shard_map the rows are tracers, so the Pallas-side bleed==1
-    exactness reroute cannot fire — optimize_batch_sharded must force the
-    XLA path host-side (see pallas_row.py:_tdiv_pos)."""
-    import jax
-    import numpy as np
-
-    from pngloss_tpu import ops as ops_pkg
-    from pngloss_tpu.parallel.mesh import data_mesh, optimize_batch_sharded
-
-    impls = []
-    real = ops_pkg.optimize_batch_auto
-
-    def spy(*a, **k):
-        impls.append(k.get("impl"))
-        return real(*a, **k)
-
-    monkeypatch.setattr(ops_pkg, "optimize_batch_auto", spy)
-    mesh = data_mesh(jax.devices("cpu")[:2])
+def test_sharded_kernel_matches_xla_at_bleed1():
+    """Under shard_map the row kernel (its host twin here) and the XLA path
+    agree at full dithering, where the dither error grows largest."""
     rng = np.random.default_rng(5)
-    rows = rng.integers(0, 256, size=(2, 4100, 3), dtype=np.uint8)
-    q, f = optimize_batch_sharded(rows, 19, bleed=1, bpp=1, mesh=mesh,
-                                  impl="pallas")
-    assert impls and all(i == "xla" for i in impls)
-    assert q.shape == rows.shape
+    rows = rng.integers(0, 256, size=(3, 9, 7 * 3), dtype=np.uint8)
+    mesh = data_mesh(jax.devices("cpu")[:2])
+    qk, fk = optimize_batch_sharded(rows, 19, bleed=1, bpp=3, mesh=mesh,
+                                    impl="cuda")
+    qx, fx = optimize_batch_sharded(rows, 19, bleed=1, bpp=3, mesh=mesh,
+                                    impl="xla")
+    np.testing.assert_array_equal(qk, qx)
+    np.testing.assert_array_equal(fk, fx)
+    assert qk.shape == rows.shape

@@ -11,10 +11,10 @@ masking, only exclusion from the original-frequency pre-pass.
 import numpy as np
 import pytest
 
-from pngloss_tpu.core import reference as ref
-from pngloss_tpu.ops import optimize_batch_auto
-from pngloss_tpu.ops.optimize import optimize_batch
-from pngloss_tpu.ops.optimize_pallas import optimize_batch_pallas
+from pngloss_jax.core import reference as ref
+from pngloss_jax.ops import optimize_batch_auto
+from pngloss_jax.ops.optimize import optimize_batch
+from pngloss_jax.ops.rowkernel import optimize_batch_kernel
 
 
 def _pad_batch(imgs, hp, wp, bpp):
@@ -43,7 +43,7 @@ def test_padded_matches_reference_all_paths(bpp):
     golden = [ref.optimize_image(im, bpp, s, 2)
               for im, s in zip(imgs, strengths)]
 
-    for impl in ("xla", "pallas"):
+    for impl in ("xla", "cuda"):
         q, f = optimize_batch_auto(
             pad, np.asarray(strengths), 2, bpp=bpp, impl=impl,
             w_real=w_real, h_real=h_real)
@@ -55,15 +55,19 @@ def test_padded_matches_reference_all_paths(bpp):
                 f[k, :h], fr, err_msg=f"{impl} img{k}")
 
 
-def test_padded_row_kernel_matches(monkeypatch):
-    monkeypatch.setenv("PNGLOSS_IMAGE_KERNEL", "0")
+def test_padded_kernel_embedding_mode_zero_pads():
+    """The kernel with every row adaptive on a padded plane: the real region
+    matches the scalar model and the padded rows and columns stay zero."""
     rng = np.random.default_rng(71)
     im = rng.integers(0, 256, (5, 6 * 3), np.uint8)
     pad = _pad_batch([im], 8, 9, 3)
-    q, f = optimize_batch_pallas(pad, 19, 2, bpp=3, w_real=[6], h_real=[5])
-    qr, fr = ref.optimize_image(im, 3, 19, 2)
-    np.testing.assert_array_equal(np.asarray(q)[0, :5, :18], qr)
-    np.testing.assert_array_equal(np.asarray(f)[0, :5], fr)
+    q, f = optimize_batch_kernel(pad, 19, 2, bpp=3, use_row_filters=False,
+                                 w_real=[6], h_real=[5])
+    q, f = np.asarray(q), np.asarray(f)
+    qr, fr = ref.optimize_image(im, 3, 19, 2, use_row_filters=False)
+    np.testing.assert_array_equal(q[0, :5, :18], qr)
+    np.testing.assert_array_equal(f[0, :5], fr)
+    assert not q[0, 5:].any() and not q[0, :, 18:].any() and not f[0, 5:].any()
 
 
 def test_padded_embedding_mode():
@@ -80,7 +84,7 @@ def test_padded_embedding_mode():
 
 def test_mixed_sizes_share_one_bucket():
     """Images whose padded shapes coincide batch into ONE device program."""
-    from pngloss_tpu.pipeline import dispatch_buckets, collect_bucket, pad_dim
+    from pngloss_jax.pipeline import dispatch_buckets, collect_bucket, pad_dim
 
     assert pad_dim(5) == 8 and pad_dim(17) == 24 and pad_dim(513) == 640
     rng = np.random.default_rng(73)
@@ -98,8 +102,8 @@ def test_mixed_sizes_share_one_bucket():
 def test_ragged_end_to_end_vs_oracle(oracle, tmp_path):
     """Mixed-size PNGs through compress_many (ragged padding on) must stay
     byte-identical to the C tool."""
-    from pngloss_tpu import codec
-    from pngloss_tpu.pipeline import compress_many
+    from pngloss_jax import codec
+    from pngloss_jax.pipeline import compress_many
     from tests.conftest import run_oracle
 
     rng = np.random.default_rng(74)

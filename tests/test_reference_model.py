@@ -10,8 +10,8 @@ model, colorspace reduction) at once.
 import numpy as np
 import pytest
 
-from pngloss_tpu.codec import pypng
-from pngloss_tpu.core import reference
+from pngloss_jax.codec import pypng
+from pngloss_jax.core import reference
 from tests.conftest import run_oracle
 from tests.test_codec import make_rgba
 

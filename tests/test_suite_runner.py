@@ -2,8 +2,8 @@
 
 import math
 
-from pngloss_tpu.metrics import psnr_rgba
-from pngloss_tpu.suite import run_suite
+from pngloss_jax.metrics import psnr_rgba
+from pngloss_jax.suite import run_suite
 
 
 def test_run_suite_rose(oracle, suite_dir, tmp_path):

@@ -1,6 +1,6 @@
 """Stage tracing."""
 
-from pngloss_tpu import tracing
+from pngloss_jax import tracing
 
 
 def test_stage_accumulation():
@@ -15,7 +15,7 @@ def test_stage_accumulation():
 
 
 def test_pipeline_traces_stages(suite_dir):
-    from pngloss_tpu.pipeline import compress_many
+    from pngloss_jax.pipeline import compress_many
     tracing.snapshot(reset=True)
     rose = open(f"{suite_dir}/rose.png", "rb").read()
     compress_many([rose], strength=19)

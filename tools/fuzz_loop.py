@@ -82,8 +82,8 @@ def random_case(rng):
         if kind in ("gray_alpha", "rgba") and rng.random() < 0.5:
             rgba[::2, :, 3] = 0   # exercise the transparent-pixel rule
     # FULL strength domain by default; cap it to concentrate a run on one
-    # rotated-window class (the class is chosen by the batch's max
-    # strength, so e.g. MAX_STRENGTH=15 pins every batch to the <=15 class)
+    # band class (chosen by the batch's max strength, so e.g.
+    # MAX_STRENGTH=31 pins every batch to the 32-entry class)
     s_max = int(os.environ.get("PNGLOSS_FUZZ_MAX_STRENGTH", "255"))
     strength = int(rng.integers(0, s_max + 1))
     return kind, rgba, strength
@@ -94,17 +94,16 @@ def run_worker(seed: int, cases: int, out_path: str | None,
     """Run `cases` randomized cases as ONE ragged mixed-strength batch
     through compress_many; oracle-compare each. Returns mismatch count.
 
-    impl="pallas" runs the Pallas kernels in interpreter mode on the CPU
-    backend — same trace as the compiled TPU programs — so the kernel
-    paths (rotated window, image kernel, per-row fallback) get fuzzed
-    too, not just the XLA path. Slower: use small --cases for it."""
+    impl="cuda" runs the row kernel's host twin (native/rowopt.h built
+    by g++, the same source as the CUDA build) through the same wrapper,
+    so the kernel's arithmetic gets fuzzed too, not just the XLA path."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from pngloss_tpu.codec import encode
-    from pngloss_tpu.pipeline import compress_many
+    from pngloss_jax.codec import encode
+    from pngloss_jax.pipeline import compress_many
 
     rng = np.random.default_rng(seed)
     bleed = int(rng.choice([1, 2, 3, 5, 17, 255, 32767]))
@@ -166,8 +165,8 @@ def run_malformed_worker(seed: int, cases: int, out_path: str | None,
     sys.path.insert(0, os.path.join(REPO, "tools"))
     from malformed import catalog, mutate, random_base
 
-    from pngloss_tpu.codec import native, pypng
-    from pngloss_tpu.pipeline import compress_many
+    from pngloss_jax.codec import native, pypng
+    from pngloss_jax.pipeline import compress_many
 
     rng = np.random.default_rng(seed)
     bleed = int(rng.choice([1, 2, 3, 17, 32767]))
@@ -372,9 +371,8 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="JSONL output path")
     ap.add_argument("--oracle", default=DEFAULT_ORACLE)
     ap.add_argument("--impl", default="auto",
-                    choices=["auto", "xla", "pallas"],
-                    help="pallas = fuzz the kernel paths in interpreter "
-                         "mode (slow; use small --cases/--cycle-cases)")
+                    choices=["auto", "xla", "cuda"],
+                    help="cuda = fuzz the row kernel's host twin")
     ap.add_argument("--deflate", action="store_true",
                     help="differential-fuzz the native fast-deflate clone "
                          "vs the system zlib (no oracle/JAX involved)")

@@ -42,7 +42,7 @@ def decode_subprocess(which: str, path: str) -> dict:
         "import sys, json; sys.path.insert(0, %r); sys.path.insert(0, %r)\n"
         "from malformed_probe import img_hash\n"
         "data = open(sys.argv[1], 'rb').read()\n"
-        "from pngloss_tpu.codec import pypng, native\n"
+        "from pngloss_jax.codec import pypng, native\n"
         "mod = native if %r == 'native' else pypng\n"
         "try:\n"
         "    img = mod.decode(data)\n"
@@ -82,7 +82,7 @@ def main() -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from pngloss_tpu.codec import pypng
+    from pngloss_jax.codec import pypng
 
     div = []
     os.makedirs("/tmp/malformed", exist_ok=True)
@@ -123,8 +123,8 @@ def main() -> int:
 
         out_cmp = ""
         if args.pixels and orc_ok and pyr["ok"]:
-            from pngloss_tpu import pipeline
-            from pngloss_tpu import codec as C
+            from pngloss_jax import pipeline
+            from pngloss_jax import codec as C
             q, filters = pipeline.optimize_rgba(img.rgba, 19, 2)
             try:
                 mine = C.encode(q, row_filters=filters, gamma=img.gamma,
